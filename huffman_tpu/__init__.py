@@ -1,17 +1,18 @@
-"""huffman_tpu: a TPU-native multi-stream canonical-Huffman codec framework.
+"""huffman_tpu: a multi-stream canonical-Huffman codec framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the
 ``ahartik/huffman-avx512`` reference (AVX-512 C++): K independent
 sub-streams sharing one canonical Huffman table, encoded/decoded in lockstep
 across vector lanes.  Where the reference keeps 8 streams per zmm register,
-the TPU design keeps hundreds per core in (sublane, lane) tiles, and scales
-further by sharding independent blocks across a device mesh.
+this design keeps one stream per device lane — thousands of them — and
+scales further by sharding independent blocks across a device mesh.
 
 Format profiles:
   * ``ref`` — byte-compatible with the reference's format (K streams,
     backward bitstreams); used for cross-verification and the golden model.
-  * ``tpu`` — word-aligned, lane-transposed framing designed for dense
-    (8, 128)-tile access on TPU; the performance profile.
+  * ``tpu`` — large-K, lane-transposed word framing (magic ``HTP3``); the
+    performance profile.  The name is the format's, not a hardware
+    requirement: it runs on any JAX backend.
 """
 
 from .utils.config import setup_compilation_cache as _setup_cache

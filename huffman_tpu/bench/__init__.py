@@ -1,6 +1,6 @@
 """Benchmark harness: workloads, timing, and table rendering.
 
-TPU-native equivalent of the reference's google-benchmark harness
+The JAX codec's equivalent of the reference's google-benchmark harness
 (codec/huffman_benchmark.cpp, C30) and its offline table generator
 (make_table.py, C32).
 """

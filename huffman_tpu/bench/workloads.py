@@ -40,12 +40,10 @@ def biased_u8(n: int, seed: int = 0) -> np.ndarray:
     """The headline biased corpus as a (n,) uint8 array.
 
     This is the ONE definition every measurement entry point (bench.py,
-    tools/ab.py, tools/bench_small.py, tools/probe_*.py) must share:
-    same-session A/B ratios and cross-tool numbers are only comparable
-    when the corpora are byte-identical.  ``rng.choice`` over the
-    truncated-renormalized P(c) ~ 0.8^c * 0.2 — the exact generator the
-    committed last_good.json/RESULTS.md headline numbers were measured
-    with (distinct bytes from :func:`biased` below, which predates it)."""
+    chip_smoke.py) must share: same-call A/B ratios and cross-tool
+    numbers are only comparable when the corpora are byte-identical.
+    ``rng.choice`` over the truncated-renormalized P(c) ~ 0.8^c * 0.2
+    (distinct bytes from :func:`biased` below, which predates it)."""
     rng = np.random.default_rng(seed)
     p = 0.8 ** np.arange(256) * 0.2
     p /= p.sum()

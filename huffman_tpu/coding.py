@@ -1,13 +1,13 @@
 """Canonical Huffman code construction (host side).
 
-Builds the shared code table from a byte histogram.  This is the TPU
+Builds the shared code table from a byte histogram.  This is the
 framework's equivalent of the reference's ``MakeCanonicalCoding`` pipeline
 (reference: codec/huffman.cpp:339-437): two-queue O(n) tree build, "MiniZ"
 length limiting to :data:`MAX_CODE_LEN`, then canonical code assignment.
 
 Like the reference, table construction stays scalar on the host: it is
 O(256 log 256) work per block and never shows up in profiles.  Only the
-per-byte encode/decode loops move onto the TPU.
+per-byte encode/decode loops move onto the device.
 
 Determinism note: the reference sorts symbols by frequency with an
 *unstable* sort (codec/huffman.cpp:353-354), so its exact compressed bytes

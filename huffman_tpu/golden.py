@@ -1,7 +1,7 @@
 """Golden scalar K-stream codec (NumPy, host side).
 
 This is the framework's *oracle*: a clear, direct implementation of the
-``ref`` format profile whose behavior every accelerated path (JAX, Pallas,
+``ref`` format profile whose behavior every accelerated path (JAX, Triton,
 native C++) is tested against — the same role the scalar
 ``CompressMulti``/``DecompressMulti`` play for the reference's AVX paths
 (reference: codec/huffman.cpp:738-846, 892-960; cross-check idea:

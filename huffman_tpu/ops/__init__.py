@@ -1,6 +1,7 @@
-"""Device-side ops: histogram, encode/decode kernels, compaction.
+"""Device-side ops: histogram, table build, encode/decode kernels.
 
-Pure-XLA (jnp) implementations live at this level; hand-written Pallas
-kernels live in :mod:`huffman_tpu.ops.pallas` and are selected by the codec
-classes when beneficial.
+Pure-XLA implementations (encode, decode_bits, compaction, lookup,
+table_build) run on every backend; the Pallas-Triton kernels
+(encode_triton, decode_triton) run on GPUs.  :mod:`huffman_tpu.ops.route`
+holds the one rule that picks between them.
 """

@@ -1,4 +1,5 @@
-"""Bit-serial lockstep decode — the gather-free TPU decode kernel.
+"""Bit-serial lockstep decode — the gather-free XLA decode kernel, the
+route every non-GPU backend takes (ops/route.py).
 
 Design (SURVEY.md §7 "hard parts" — the per-lane gathers that bottleneck
 the reference, huffman.cpp:1516-1521 / README.md:129-138, are eliminated
@@ -20,7 +21,7 @@ entirely):
   a symbol starts) and compacted per lane with `compact_packed`.
 * Symbol resolution happens **after** compaction, once per symbol instead
   of once per bit: code length and rank arithmetically, then
-  rank -> byte through the MXU (`lookup256`).
+  rank -> byte through a one-hot matmul (`lookup256`).
 
 The minimum code length ``l_min`` (static, from the table) lets groups of
 ``l_min`` consecutive bit-steps share one staging slot — at most one emit
@@ -35,7 +36,7 @@ import jax.numpy as jnp
 from .compaction import compact_packed
 from .lookup import lookup256
 
-# TPU profile: deeper 15-bit limit (see constants.TPU_MAX_CODE_LEN).
+# tpu format profile: deeper 15-bit limit (see constants.TPU_MAX_CODE_LEN).
 # The staged emit packs {valid flag (bit 15) | window (bits 14..0)} in a
 # uint16, so 15 is also the widest window this staging layout can carry.
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
@@ -89,17 +90,15 @@ def decode_tables_bitserial(len_count, sorted_syms):
     }
 
 
-def decode_bitserial(words, bit_counts, e_bound, g_rank, syms, *, group: int, out_len: int):
+def decode_bitserial(words, e_bound, g_rank, syms, *, group: int, out_len: int):
     """Decode K lanes, one bit per lane per step.
 
     Args:
       words: (W, K) uint32 — lane-transposed payload, forward bit order,
-        MSB-first; bits past ``bit_counts[k]`` must be zero (the encoder
+        MSB-first; bits past each lane's stream must be zero (the encoder
         zero-pads).  Padding bits decode as garbage symbols AFTER the
         lane's real S symbols and fall past ``out_len`` in the stable
         compaction, so no per-bit masking is needed at all.
-      bit_counts: (K,) int32 — valid bits per lane (unused in the hot loop;
-        kept for interface stability / debugging).
       e_bound: (MAX_CODE_LEN+2,) int32 constant (`decode_tables_bitserial`).
       g_rank: (MAX_CODE_LEN+1,) int32 constant.
       syms: (256,) int32 constant rank->symbol.
@@ -114,10 +113,7 @@ def decode_bitserial(words, bit_counts, e_bound, g_rank, syms, *, group: int, ou
     W, K = words.shape
     slots = -(-32 // group)  # staging slots per 32-bit word
 
-    # Native (sublane, lane) tiling when K allows it.
-    lanes_shape = (K // 128, 128) if K % 128 == 0 and K >= 1024 else (K,)
-    w2 = words.reshape((W,) + lanes_shape)
-    nxt = jnp.concatenate([w2[1:], jnp.zeros((1,) + lanes_shape, w2.dtype)], 0)
+    nxt = jnp.concatenate([words[1:], jnp.zeros((1, K), words.dtype)], 0)
 
     # group <= l_min, so lengths below `group` always satisfy their
     # canonical compare (E[l] = 0 there): fold them into the initial count.
@@ -126,7 +122,7 @@ def decode_bitserial(words, bit_counts, e_bound, g_rank, syms, *, group: int, ou
     def step(carry, rows):
         c = carry
         cur, nx = rows
-        slot_val = [jnp.zeros(lanes_shape, jnp.uint16)] * slots
+        slot_val = [jnp.zeros((K,), jnp.uint16)] * slots
         for j in range(32):
             if j == 0:
                 win = (cur >> (32 - MAX_CODE_LEN)).astype(_I32)
@@ -134,7 +130,7 @@ def decode_bitserial(words, bit_counts, e_bound, g_rank, syms, *, group: int, ou
                 win = (((cur << j) | (nx >> (32 - j))) >> (32 - MAX_CODE_LEN)).astype(_I32)
             # Length of the code starting at this bit: canonical-boundary
             # compares — feed-forward, off the serial path.
-            ln = jnp.full(lanes_shape, group, _I32)
+            ln = jnp.full((K,), group, _I32)
             for e in eb:
                 ln = ln + (win >= e).astype(_I32)
             boundary = c == 0
@@ -147,8 +143,8 @@ def decode_bitserial(words, bit_counts, e_bound, g_rank, syms, *, group: int, ou
 
     # Derive the zero carry from the payload (not a literal) so its vma
     # type matches the body's output under shard_map's check_vma.
-    init = (w2[0] & 0).astype(_I32)
-    _, staged = jax.lax.scan(step, init, (w2, nxt))  # (W, slots, *lanes)
+    init = (words[0] & 0).astype(_I32)
+    _, staged = jax.lax.scan(step, init, (words, nxt))  # (W, slots, K)
     staged = staged.reshape(W * slots, K)
 
     valid = (staged & 0x8000) != 0

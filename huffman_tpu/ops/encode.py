@@ -1,20 +1,20 @@
-"""Lane-parallel encode kernel (pure XLA, gather-free, scan-free).
+"""Lane-parallel encode kernel (pure XLA, gather-free, scan-free): the
+route every non-GPU backend takes (ops/route.py).
 
 K independent streams encode in lockstep.  This is the reference's
 stream-major hot loop (codec/huffman.cpp:825-843) re-derived for a vector
 machine with thousands of lanes:
 
 * the per-byte code lookup is a nibble-factored one-hot matmul
-  (`ops.lookup.lookup256`) — XLA gathers serialize on TPU, MXU matmuls
-  don't;
+  (`ops.lookup.lookup256`), dense arithmetic with no gather;
 * bit-packing is NOT a serial accumulator loop.  Every output bit position
   is known in advance: a parallel prefix sum of code lengths gives each
   byte's bit offset (the same determinism the reference exploits to
   precompute exact stream sizes, huffman.cpp:770-786 — applied per symbol
   instead of per stream).  Each 16-bit-left-aligned code then splits into
   at most two word-aligned pieces, and pieces land in their target words
-  via log2(S) rounds of monotone shift-plus-OR — dense VPU work, no
-  scatters, no ``lax.scan`` (whose ~5 us/step overhead dominated the old
+  via log2(S) rounds of monotone shift-plus-OR — dense elementwise work,
+  no scatters, no ``lax.scan`` (whose per-step overhead dominated the old
   serial version).
 
 Bit semantics match the wire format exactly: codes are appended MSB-first;
@@ -177,8 +177,7 @@ def _encode_lanes_scan(byte_matrix, valid, enc_table):
 
 
 def words_to_byte_columns(words):
-    """(W, K) u16-valued forward words -> (2W, K) u8 forward stream bytes."""
-    w = words.astype(jnp.int32)
-    hi = (w >> 8).astype(jnp.uint8)
-    lo = (w & 0xFF).astype(jnp.uint8)
-    return jnp.stack([hi, lo], axis=1).reshape(2 * words.shape[0], words.shape[1])
+    """(W, K) u32 forward words -> (4W, K) u8 forward stream bytes."""
+    w = words.astype(jnp.uint32)
+    parts = [((w >> sh) & 0xFF).astype(jnp.uint8) for sh in (24, 16, 8, 0)]
+    return jnp.stack(parts, axis=1).reshape(4 * words.shape[0], words.shape[1])

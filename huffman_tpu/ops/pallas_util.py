@@ -5,17 +5,14 @@ from __future__ import annotations
 import jax
 
 
-def sds_like(shape, dtype, like):
-    """ShapeDtypeStruct whose varying-manual-axes match ``like``.
+def sds_like(shape, dtype, *like):
+    """ShapeDtypeStruct that varies over the mesh axes any of ``like`` does.
 
     Under shard_map with check_vma=True, pallas_call outputs must declare
-    how they vary over the mesh axes (same as their block-sharded
-    inputs); outside shard_map the vma set is empty and omitted.
+    how they vary over the mesh axes; outside shard_map the vma set is
+    empty and omitted.
     """
-    try:
-        vma = jax.typeof(like).vma
-    except AttributeError:
-        vma = None
+    vma = frozenset().union(*(jax.typeof(x).vma for x in like))
     if vma:
         return jax.ShapeDtypeStruct(shape, dtype, vma=vma)
     return jax.ShapeDtypeStruct(shape, dtype)

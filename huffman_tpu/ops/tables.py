@@ -11,8 +11,8 @@ that device kernels index with vectorized gathers:
   bits 0-7 consumed-bit-count, bits 8-9 symbol count, bits 10-17 sym0,
   bits 18-25 sym1.
 
-v5e gathers run near HBM bandwidth when issued thousands-wide, so flat
-gathers replace the reference's in-register ``vpermi2b`` tables.
+Flat tables in device memory replace the reference's in-register
+``vpermi2b`` tables.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from ..constants import MAX_CODE_LEN
 def pack_encode_table(cc: coding.CanonicalCoding) -> np.ndarray:
     """u32[256]: code_value<<4 | len.
 
-    The encode kernels (ops/encode.py, ops/encode_pallas.py) consume code
+    The encode kernels (ops/encode.py, ops/encode_triton.py) consume code
     values left-aligned in TPU_MAX_CODE_LEN (15) bits, so the ref
     profile's 12-bit-aligned canonical codes are up-shifted here; the
     emitted stream bits are identical (alignment is kernel-internal).

@@ -2,7 +2,7 @@
 
 Submodules are loaded lazily: `distributed.initialize()` must be callable
 BEFORE anything initializes the XLA backend, and importing the sharded
-codec (Pallas kernels) does exactly that.
+codec (device kernels) does exactly that.
 """
 
 

@@ -1,19 +1,20 @@
 """Multi-host initialization and mesh construction.
 
 The reference has no distributed backend at all (SURVEY §2); this module
-is the framework's `jax.distributed` entry point for multi-host pods.
+is the framework's `jax.distributed` entry point for multi-host runs.
 
-Usage on each host of a pod slice:
+Usage on each host (a GPU cluster names its coordinator explicitly):
 
     from huffman_tpu.parallel import distributed
-    distributed.initialize()          # env-driven (TPU pods auto-detect)
+    distributed.initialize(coordinator_address="host0:1234",
+                           num_processes=2, process_id=0)
     mesh = distributed.pod_mesh(stream_per_host=True)
 
 Design notes (see SCALING.md): the `data` axis carries no communication,
-so it spans hosts/DCN freely; the `stream` axis psums 1 KiB histograms
-per block and should stay within an ICI domain.  `pod_mesh` therefore
-maps `stream` onto each host's local devices and `data` across hosts by
-default.
+so it spans hosts freely; the `stream` axis psums 1 KiB histograms per
+block and is best kept within one host, whose cards share NVLink.
+`pod_mesh` therefore maps `stream` onto each host's local devices and
+`data` across hosts by default.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ _state: str | None = None
 
 
 def initialize(**kwargs) -> None:
-    """Initialize jax.distributed once per process (env-driven on pods).
+    """Initialize jax.distributed once per process.
 
     * Explicit ``kwargs`` (coordinator_address, num_processes, ...): a
       failure propagates — a misconfigured multi-host job must not be
@@ -66,7 +67,7 @@ def pod_mesh(stream: int | None = None, stream_per_host: bool = False):
     Args:
       stream: explicit stream-axis size (must divide device count).
       stream_per_host: if True, the stream axis size = local device
-        count, confining the histogram psum to intra-host ICI.
+        count, confining the histogram psum to one host.
     """
     import jax
 

@@ -1,12 +1,12 @@
 """Data/stream-parallel block codec over a ``jax.sharding.Mesh``.
 
 The reference is strictly single-core (SURVEY.md §2: no threads, no NCCL);
-its only parallelism is K in-core streams.  This module adds the two device
-axes a TPU pod gives us, as one fully-jitted ``shard_map`` step:
+its only parallelism is K in-core streams.  This module adds two device
+axes, as one fully-jitted ``shard_map`` step:
 
 * ``data`` axis — independent blocks, embarrassingly parallel (the "new: DP
   over blocks" row of SURVEY.md §2's parallelism table).
-* ``stream`` axis — the K lanes of a *single* block sharded across chips.
+* ``stream`` axis — the K lanes of a *single* block sharded across devices.
   All shards must agree on one shared code table, so per-shard histograms
   are ``psum``-reduced over ``stream`` (the distributed analog of the
   reference's histogram-merge loop, codec/huffman.cpp:762-766) and every
@@ -15,10 +15,12 @@ axes a TPU pod gives us, as one fully-jitted ``shard_map`` step:
 
 Because the table builder itself is jittable (ops/table_build.py), the
 entire histogram -> psum -> table -> encode -> decode step compiles to ONE
-XLA program: zero host syncs, collectives riding ICI.
+XLA program: zero host syncs; the one collective is the 1 KiB histogram
+psum.  On GPUs the per-shard encode and decode are the Triton kernels, the
+same rule as the single-device codec (ops/route.py).
 
 Layout: within each shard the lane framing is STRIDED, matching the
-single-chip tpu profile — ``block.reshape(s, k_local)``, local byte b ->
+single-device tpu profile — ``block.reshape(s, k_local)``, local byte b ->
 lane ``b % k_local``, row ``b // k_local`` (see ``_shard_encode_one``).
 The host-side ``_permute_in``/``_permute_out`` hand shard c exactly the
 global strided byte subset for lanes ``[c*k_local, (c+1)*k_local)``, so
@@ -37,17 +39,12 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
-from ..ops.decode_bits import decode_bitserial
-from ..ops.decode_pallas import decode_bitserial_pallas, decode_kernel_fits
-from ..ops.decode_words import pack_u16_words_to_u32
-from ..ops.encode import encode_lanes
-from ..ops.encode_pallas import encode_lanes_pallas
+from ..ops import route
 from ..ops.lookup import histogram256
 from ..ops.table_build import build_coding_device
 
@@ -63,7 +60,7 @@ def make_mesh(devices=None, axis_names=("data", "stream"), stream=1) -> Mesh:
     return Mesh(devices.reshape(n // stream, stream), axis_names)
 
 
-def _shard_encode_one(block, k_local, s, w32, use_pallas):
+def _shard_encode_one(block, k_local, s, w32, kernels):
     """One block shard -> (words32, bit_counts, tables) with the SHARED
     table (psum'd histogram over the 'stream' axis, huffman.cpp:762-766
     distributed).
@@ -71,32 +68,13 @@ def _shard_encode_one(block, k_local, s, w32, use_pallas):
     Framing is STRIDED within the shard (local byte b -> lane b % k_local,
     row b // k_local), so when the host hands shard c the global strided
     byte subset for lanes [c*k_local, (c+1)*k_local) the per-lane streams
-    equal the single-chip tpu profile's exactly — sharded-compressed
+    equal the single-device tpu profile's exactly — sharded-compressed
     blobs are standard HTP3 blocks (see ShardedCodec.compress)."""
-    byte_mat = block.reshape(s, k_local).astype(jnp.int32)
     hist = jax.lax.psum(histogram256(block), "stream")
-    t = build_coding_device(hist, serial_tree=False)
-
-    if use_pallas:
-        w3, bits3 = encode_lanes_pallas(
-            byte_mat.reshape(s, k_local // 128, 128), t["enc_table"]
-        )
-        words16 = w3.reshape(w3.shape[0], k_local)
-        bit_counts = bits3.reshape(k_local)
-        word_counts = (bit_counts + 15) >> 4
-    else:
-        valid = jnp.ones((s, k_local), bool)
-        words16, word_counts, bit_counts = encode_lanes(
-            byte_mat, valid, t["enc_table"]
-        )
-    rows = words16.shape[0]
-    if rows < 2 * w32:
-        words16 = jnp.concatenate(
-            [words16, jnp.zeros((2 * w32 - rows, k_local), words16.dtype)]
-        )
-    else:
-        words16 = jax.lax.slice_in_dim(words16, 0, 2 * w32, axis=0)
-    words32 = pack_u16_words_to_u32(words16, jnp.minimum(word_counts, 2 * w32))
+    t = build_coding_device(hist)
+    words32, bit_counts = route.encode_words(
+        block.reshape(s, k_local), t["enc_table"], w32, kernels=kernels
+    )
     return words32, bit_counts, t
 
 
@@ -111,16 +89,13 @@ def sharded_encode(data, *, mesh, k, s, w32):
     (huffman.cpp:770-786): per-lane bit counts are exact, so all
     serialization offsets are computable with zero payload reshuffles.
     """
-    n_stream = mesh.shape["stream"]
-    k_local = k // n_stream
-    use_pallas = (
-        jax.default_backend() != "cpu" and k_local % 1024 == 0 and 2 <= s <= 256
-    )
+    k_local = k // mesh.shape["stream"]
+    kernels = route.gpu_kernels()
 
     def step(blocks):
         def one(block):
             words32, bit_counts, t = _shard_encode_one(
-                block, k_local, s, w32, use_pallas
+                block, k_local, s, w32, kernels
             )
             return (
                 words32,
@@ -159,37 +134,14 @@ def sharded_decode(words, e_bound, g_rank, syms, *, mesh, k, s, w, group):
     Returns:
       (B, N) uint8 decoded shard-local strided bytes.
     """
-    n_stream = mesh.shape["stream"]
-    k_local = k // n_stream
-    use_pallas = (
-        jax.default_backend() != "cpu"
-        and k_local % 1024 == 0
-        and decode_kernel_fits(w, group, s)
-    )
+    kernels = route.gpu_kernels()
 
     def step(wds, eb, gr, sy):
         def one(wv, eb1, gr1, sy1):
             wt = jax.lax.slice_in_dim(wv, 0, max(w, 1), axis=0)
-            if use_pallas:
-                out3 = decode_bitserial_pallas(
-                    wt.reshape(w, k_local // 128, 128),
-                    eb1,
-                    gr1,
-                    sy1,
-                    group=group,
-                    out_len=s,
-                )
-                out = out3.reshape(s, k_local).astype(jnp.uint8)
-            else:
-                out = decode_bitserial(
-                    wt,
-                    jnp.zeros((k_local,), jnp.int32),
-                    eb1,
-                    gr1,
-                    sy1,
-                    group=group,
-                    out_len=s,
-                )
+            out = route.decode_rows(
+                wt, eb1, gr1, sy1, out_len=s, group=group, kernels=kernels
+            )
             return out.reshape(-1)
 
         return jax.vmap(one)(wds, eb, gr, sy)
@@ -208,10 +160,8 @@ def sharded_decode(words, e_bound, g_rank, syms, *, mesh, k, s, w, group):
     )(words, e_bound, g_rank, syms)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("mesh", "k", "s", "w32", "group", "pallas")
-)
-def sharded_roundtrip(data, *, mesh, k, s, w32, group=1, pallas="auto"):
+@functools.partial(jax.jit, static_argnames=("mesh", "k", "s", "w32", "group"))
+def sharded_roundtrip(data, *, mesh, k, s, w32, group=1):
     """Fully-jitted sharded compress+decompress step.
 
     Args:
@@ -222,59 +172,26 @@ def sharded_roundtrip(data, *, mesh, k, s, w32, group=1, pallas="auto"):
       s: bytes per lane.
       w32: static payload words per lane (>= ceil(s*MAX_CODE_LEN/32)+1 for
         worst case; smaller only if the data is known compressible).
-      group: static staging-group width for the bit-serial decoder (1 is
-        always safe).
-      pallas: 'auto' (fused kernels on accelerator backends when shard
-        shapes fit), 'force' (always — pair with Pallas interpret mode on
-        CPU so the multichip dryrun exercises the vma-declared kernel
-        path), or 'off'.
+      group: static staging-group width for the XLA bit-serial decoder
+        (1 is always safe; the GPU kernel ignores it).
 
     Returns:
       decoded: (B, N) uint8 — must equal ``data``.
       bit_counts: (B, k) int32 exact compressed bits per lane.
       words: (B, w32, k) uint32 lane-transposed payload shards.
     """
-    n_stream = mesh.shape["stream"]
-    k_local = k // n_stream
-    # Fused Pallas kernels on accelerator backends when the per-device
-    # shard shapes fit their guards (same conditions as models/tpu_codec).
-    if pallas == "force":
-        assert k_local % 1024 == 0 and 2 <= s <= 256, (k_local, s)
-        use_pallas = True
-    else:
-        use_pallas = (
-            pallas == "auto"
-            and jax.default_backend() != "cpu"
-            and k_local % 1024 == 0
-            and 2 <= s <= 256
-            and decode_kernel_fits(w32, group, s)
-        )
+    k_local = k // mesh.shape["stream"]
+    kernels = route.gpu_kernels()
 
     def step(blocks):  # blocks: (B_local, k_local * s) u8
         def one(block):
             words32, bit_counts, t = _shard_encode_one(
-                block, k_local, s, w32, use_pallas
+                block, k_local, s, w32, kernels
             )
-            if use_pallas:
-                out3 = decode_bitserial_pallas(
-                    words32.reshape(w32, k_local // 128, 128),
-                    t["e_bound"],
-                    t["g_rank"],
-                    t["sorted_syms"],
-                    group=group,
-                    out_len=s,
-                )
-                out = out3.reshape(s, k_local).astype(jnp.uint8)
-            else:
-                out = decode_bitserial(
-                    words32,
-                    bit_counts,
-                    t["e_bound"],
-                    t["g_rank"],
-                    t["sorted_syms"],
-                    group=group,
-                    out_len=s,
-                )
+            out = route.decode_rows(
+                words32, t["e_bound"], t["g_rank"], t["sorted_syms"],
+                out_len=s, group=group, kernels=kernels,
+            )
             return out.reshape(-1), bit_counts, words32
 
         return jax.vmap(one)(blocks)
@@ -293,7 +210,7 @@ def sharded_roundtrip(data, *, mesh, k, s, w32, group=1, pallas="auto"):
 
 
 class ShardedCodec:
-    """Block-data-parallel codec facade for multi-chip runs.
+    """Block-data-parallel codec facade for multi-device runs.
 
     Splits an input byte stream into fixed-size blocks, shards them over the
     mesh, and runs the one-program roundtrip/encode step.  Host-side
@@ -319,8 +236,10 @@ class ShardedCodec:
         padded[:n] = data
         # Host permutation makes the shard-local strided framing equal the
         # GLOBAL tpu-profile lane map, so bits/words are identical for any
-        # mesh shape (and to the single-chip codec's).
-        blocks = jnp.asarray(self._permute_in(padded.reshape(nb, bb)))
+        # mesh shape (and to the single-device codec's).
+        # Host arrays go straight to their shards (no staging copy on one
+        # device).
+        blocks = self._permute_in(padded.reshape(nb, bb))
         sharding = NamedSharding(self.mesh, P("data", "stream"))
         blocks = jax.device_put(blocks, sharding)
         w32 = (self.s * MAX_CODE_LEN + 31) // 32 + 1
@@ -340,7 +259,7 @@ class ShardedCodec:
         GLOBAL tpu-profile strided lane map: shard c's local (s, k_local)
         cell (r, j) holds global byte r*k + c*k_local + j.  Blobs built
         from the sharded encode are therefore byte-identical standard
-        HTP3 blocks, decodable by a single-chip TpuCodec (and vice
+        HTP3 blocks, decodable by a single-device TpuCodec (and vice
         versa)."""
         b, n = blocks.shape
         ns, kl = self._n_stream(), self.k // self._n_stream()
@@ -383,7 +302,7 @@ class ShardedCodec:
         sharding = NamedSharding(self.mesh, P("data", "stream"))
         w32 = (self.s * MAX_CODE_LEN + 31) // 32 + 1
         words, bits, lc, ss, ns_arr = sharded_encode(
-            jax.device_put(jnp.asarray(blocks), sharding),
+            jax.device_put(blocks, sharding),
             mesh=self.mesh,
             k=self.k,
             s=self.s,
@@ -472,10 +391,10 @@ class ShardedCodec:
             sh_w = NamedSharding(self.mesh, P("data", None, "stream"))
             sh_t = NamedSharding(self.mesh, P("data", None))
             dec = sharded_decode(
-                jax.device_put(jnp.asarray(wordsb), sh_w),
-                jax.device_put(jnp.asarray(ebb), sh_t),
-                jax.device_put(jnp.asarray(grb), sh_t),
-                jax.device_put(jnp.asarray(syb), sh_t),
+                jax.device_put(wordsb, sh_w),
+                jax.device_put(ebb, sh_t),
+                jax.device_put(grb, sh_t),
+                jax.device_put(syb, sh_t),
                 mesh=self.mesh,
                 k=self.k,
                 s=self.s,

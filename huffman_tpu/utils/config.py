@@ -1,37 +1,33 @@
-"""Framework configuration.
+"""Framework configuration: the persistent XLA compilation cache.
 
 The reference's "config system" is compile-time template parameters and
-#defines (SURVEY.md §5); here configuration is runtime but still explicit:
-environment variables read once at import.
+#defines (SURVEY.md §5); here configuration is runtime but explicit.
 
-HUFFMAN_TPU_CACHE_DIR   persistent XLA compilation-cache directory
-                        (default /tmp/jax_cache_huffman_tpu, "" disables).
-                        The codec kernels are large scan programs whose TPU
-                        compiles can take minutes; the cache makes every
-                        process after the first start instantly.
+The codec compiles one program per block shape, and the GPU kernels add a
+Triton compile to each.  The cache lets every process after the first
+skip them:
+
+* if ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses that directory and
+  nothing here changes;
+* otherwise the cache lives at ``<checkout>/.jax_cache``, a fixed path
+  (the path is part of the cache key) that ``.gitignore`` lists.
 """
 
 from __future__ import annotations
 
 import os
 
-_INITIALIZED = False
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
 def setup_compilation_cache() -> None:
-    """Enable JAX's persistent compilation cache (idempotent)."""
-    global _INITIALIZED
-    if _INITIALIZED:
-        return
-    _INITIALIZED = True
-    cache_dir = os.environ.get("HUFFMAN_TPU_CACHE_DIR", "/tmp/jax_cache_huffman_tpu")
-    if not cache_dir:
+    """Point JAX's persistent compilation cache at `CACHE_DIR` unless
+    ``JAX_COMPILATION_CACHE_DIR`` already names one."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - older/newer jax flag drift
-        pass
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)

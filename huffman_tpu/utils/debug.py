@@ -9,14 +9,11 @@ zero-cost when disabled.  The equivalents here:
   ``HUFFMAN_TPU_VLOG`` (env, read once).  Zero-cost when disabled in the
   sense that hot paths never call it (it is for framing/driver code);
   inside jitted code use `jax.debug.print` via `dprint`.
-* ``dprint(fmt, **kw)`` — traced-value printing inside jit/Pallas,
+* ``dprint(fmt, **kw)`` — traced-value printing inside jit,
   compiled in only when ``HUFFMAN_TPU_VLOG`` >= its level at trace time
   (so production traces carry no debug ops at all — the same
   compile-time gating idea as the reference).
 * ``assert_vec_eq`` — ASSERT_VEC_EQ for tests: pretty numpy diff.
-* ``interpret_kernels()`` — context manager forcing Pallas interpret
-  mode (the kernel-level "sanitizer": full Python-level checking of the
-  fused kernels, see tests/test_pallas_interpret.py).
 """
 
 from __future__ import annotations
@@ -60,16 +57,7 @@ def assert_vec_eq(a, b, msg: str = "") -> None:
 
 
 @contextlib.contextmanager
-def interpret_kernels():
-    """Run all Pallas kernels in interpret mode within the context."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
-
-
-@contextlib.contextmanager
-def profile_trace(logdir: str = "/tmp/huffman_tpu_trace"):
+def profile_trace(logdir: str):
     """Capture a jax.profiler trace of the enclosed block (the
     reference's --config=profopt analog: feed this to XProf/TensorBoard)."""
     import jax

@@ -1,7 +1,7 @@
 // Native host runtime for huffman_tpu: fast CPU codec for the `ref`
 // format profile (K-stream canonical Huffman, backward bitstreams).
 //
-// Role in the framework: the host-side runtime around the TPU compute
+// Role in the framework: the host-side runtime around the device compute
 // path — small-block fallback, serialization-side processing, and the
 // fast cross-check anchor for the accelerated paths.  It implements the
 // same wire format as huffman_tpu.golden (see huffman_tpu/format.py for

@@ -2,7 +2,7 @@
 //
 // The reference is strictly single-threaded (SURVEY §2: "no threads
 // even"); its unit of parallelism is K in-core streams.  This runtime
-// adds the process-level axis the framework's TPU side gets from the
+// adds the process-level axis the framework's device side gets from the
 // 'data' mesh axis: independent blocks compressed/decompressed by a
 // worker pool, sequenced into the same HTPC container the Python side
 // reads (container.py layout).  Record kind 'R' = a ref-profile blob

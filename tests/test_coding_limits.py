@@ -1,6 +1,6 @@
 """Length-limited construction quality: clamp_hist + MiniZ vs package-merge.
 
-The TPU profile's table build feeds `clamp_hist`-ed counts to the ordinary
+The tpu profile's table build feeds `clamp_hist`-ed counts to the ordinary
 two-queue + MiniZ pipeline (coding.py).  These tests pin the property that
 construction relies on: the clamped build's cost matches the package-merge
 OPTIMUM (the true minimum-redundancy length-limited code) to within a

@@ -64,11 +64,10 @@ def test_out_len_trim():
 
 
 def test_displacement_rounds_lsb_first_randomized():
-    """Randomized model of the kernel's stage-2 displacement rounds
-    (ops/decode_pallas.py): LSB-first binary shifts compact any monotone
-    staged pattern without collisions.  (MSB-first provably corrupts —
-    intermediate rows invert — which is why the kernel's round order is
-    load-bearing; see the kernel comment.)"""
+    """Randomized model of the displacement rounds of `compact_packed`:
+    LSB-first binary shifts compact any monotone staged pattern without
+    collisions.  (MSB-first provably corrupts — intermediate rows invert —
+    which is why the round order is load-bearing.)"""
     import numpy as np
 
     rng = np.random.default_rng(42)

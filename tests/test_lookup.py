@@ -1,6 +1,7 @@
 """Exactness tests for the matmul-based lookup/histogram primitives."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -58,37 +59,32 @@ def test_pack_unpack_decode_table():
 
 
 def test_histogram256_batch_fallback_matches_bincount():
-    """CPU default backend falls back to vmap(histogram256)."""
-    from huffman_tpu.ops.lookup import histogram256_batch
-
+    """The batched codec's per-block histograms: jax.vmap(histogram256)."""
     rng = np.random.default_rng(3)
     d = rng.integers(0, 256, size=(5, 4096)).astype(np.uint8)
-    got = np.asarray(histogram256_batch(jnp.asarray(d)))
+    got = np.asarray(jax.jit(jax.vmap(histogram256))(jnp.asarray(d)))
     want = np.stack([np.bincount(r, minlength=256) for r in d])
     np.testing.assert_array_equal(got, want)
 
 
-def test_histogram256_batch_pallas_interpret_exact():
-    """The fused batched Pallas pass is exact in interpret mode across
-    the dispatch corners: sub-quantum fallback, exact-chunk, padded tail,
-    and multi-chunk-per-block grids."""
-    from huffman_tpu.ops.lookup import _HIST_CHUNK, histogram256_batch
-
+@pytest.mark.parametrize(
+    "b,n", [(1, 1024), (3, 1000), (4, 102_400), (2, (1 << 22) + 4096), (2, 777)]
+)
+def test_histogram256_batch_exact(b, n):
+    """Batched histograms stay exact across the chunking corners: one
+    chunk, a padded tail, and blocks longer than one f32-exact chunk."""
     rng = np.random.default_rng(4)
-    for b, n in [(1, 1024), (3, 1000), (4, 102_400), (2, _HIST_CHUNK + 4096), (2, 777)]:
-        d = rng.integers(0, 256, size=(b, n)).astype(np.uint8)
-        got = np.asarray(histogram256_batch(jnp.asarray(d), interpret=True))
-        want = np.stack([np.bincount(r, minlength=256) for r in d])
-        np.testing.assert_array_equal(got, want, err_msg=f"B={b} n={n}")
+    d = rng.integers(0, 256, size=(b, n)).astype(np.uint8)
+    got = np.asarray(jax.jit(jax.vmap(histogram256))(jnp.asarray(d)))
+    want = np.stack([np.bincount(r, minlength=256) for r in d])
+    np.testing.assert_array_equal(got, want, err_msg=f"B={b} n={n}")
 
 
 def test_histogram256_batch_skewed_single_symbol():
-    """All-one-byte blocks stress the padding correction (byte 0 column)."""
-    from huffman_tpu.ops.lookup import histogram256_batch
-
+    """All-one-byte blocks stress the padding (value-256 rows never count)."""
     d = np.zeros((3, 70_000), dtype=np.uint8)
     d[1, :] = 255
     d[2, ::3] = 7
-    got = np.asarray(histogram256_batch(jnp.asarray(d), interpret=True))
+    got = np.asarray(jax.jit(jax.vmap(histogram256))(jnp.asarray(d)))
     want = np.stack([np.bincount(r, minlength=256) for r in d])
     np.testing.assert_array_equal(got, want)

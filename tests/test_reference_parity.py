@@ -8,7 +8,7 @@ Builds the reference (read-only, in a scratch dir) and verifies:
     deterministic tie-break never hurts the size: lengths are identical).
 
 Skipped when the oracle cannot be built (no compiler / no reference).
-This is the TPU-framework version of the reference's own
+This is this framework's version of the reference's own
 ``AvxCheckCompressor`` equivalence testing (codec/huffman_test.cpp:15-32).
 """
 

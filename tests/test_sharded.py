@@ -55,7 +55,7 @@ def test_sharded_matches_single_device():
 @pytest.mark.parametrize("stream", [1, 2])
 def test_sharded_bytes_api_interop(stream):
     """ShardedCodec.compress emits a standard HTP3 container that the
-    single-chip TpuCodec decodes byte-identically, and vice versa — the
+    single-device TpuCodec decodes byte-identically, and vice versa — the
     mesh changes WHERE the work runs, not the wire format."""
     from huffman_tpu.models.tpu_codec import TpuCodec
 
@@ -64,10 +64,10 @@ def test_sharded_bytes_api_interop(stream):
     raw = _data(3 * 4096 + 777, seed=9).tobytes()
     blob = sc.compress(raw)
     assert sc.decompress(blob) == raw
-    # Cross-decode: single-chip codec reads the sharded container.
+    # Cross-decode: single-device codec reads the sharded container.
     tc = TpuCodec()
     assert tc.decompress(blob) == raw
-    # And the sharded codec reads a single-chip container of its shape.
+    # And the sharded codec reads a single-device container of its shape.
     tc2 = TpuCodec(64)
     tc2.block_bytes = 4096
     from huffman_tpu import container as ctn

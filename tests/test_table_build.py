@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from huffman_tpu import coding
-# The device builder limits at the TPU profile depth with the count
+# The device builder limits at the tpu profile depth with the count
 # clamp; the host oracle must be called with the same parameters.
 from huffman_tpu.constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
 from huffman_tpu.ops.table_build import build_coding_device
@@ -87,68 +87,3 @@ def test_big_counts():
     hist = np.zeros(256, np.int64)
     hist[:40] = (2.0 ** np.linspace(1, 24, 40)).astype(np.int64)
     _check(hist)
-
-
-@pytest.mark.parametrize("name", list(CASES))
-def test_serial_tree_kernel_interpret(name):
-    """The scalar-SMEM Pallas tree builder (the serial_tree=True path the
-    TPU dispatch uses, with the fused Kraft length-limit repair) must
-    match the host oracle bit-for-bit.  Runs in interpret mode: the
-    kernel otherwise only executes on hardware."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    hist = np.asarray(CASES[name], dtype=np.int64)
-    cc = coding.make_canonical_coding(hist.astype(np.uint64), MAX_CODE_LEN, clamp=True)
-    with pltpu.force_tpu_interpret_mode():
-        dev = {
-            k: np.asarray(v)
-            for k, v in build_coding_device(hist, serial_tree=True).items()
-        }
-    assert dev["num_syms"] == cc.num_syms
-    np.testing.assert_array_equal(
-        dev["len_count"], cc.len_count.astype(np.int64), err_msg="len_count"
-    )
-    want = (cc.code_bits.astype(np.int64) << 4) | cc.code_lens
-    np.testing.assert_array_equal(dev["enc_table"], want, err_msg="enc_table")
-
-
-def test_serial_tree_kernel_interpret_random():
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(11)
-    for i in range(10):
-        n_active = int(rng.integers(1, 257))
-        hist = np.zeros(256, np.int64)
-        active = rng.choice(256, size=n_active, replace=False)
-        hist[active] = rng.geometric(0.002, size=n_active)
-        cc = coding.make_canonical_coding(hist.astype(np.uint64), MAX_CODE_LEN, clamp=True)
-        with pltpu.force_tpu_interpret_mode():
-            dev = {
-                k: np.asarray(v)
-                for k, v in build_coding_device(hist, serial_tree=True).items()
-            }
-        np.testing.assert_array_equal(dev["len_count"], cc.len_count.astype(np.int64))
-        want = (cc.code_bits.astype(np.int64) << 4) | cc.code_lens
-        np.testing.assert_array_equal(dev["enc_table"], want)
-
-
-@pytest.mark.parametrize("name", list(CASES))
-def test_fused_table_kernel_interpret(name):
-    """The one-kernel table build (tree + repair + canonical derivation,
-    `_full_table_kernel`) must match the XLA derivation bit-for-bit."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    hist = np.asarray(CASES[name], dtype=np.int64)
-    ref = {
-        k: np.asarray(v)
-        for k, v in build_coding_device(hist, serial_tree=False).items()
-    }
-    with pltpu.force_tpu_interpret_mode():
-        got = {
-            k: np.asarray(v)
-            for k, v in build_coding_device(
-                hist, serial_tree=True, fused=True
-            ).items()
-        }
-    for k in ref:
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

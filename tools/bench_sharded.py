@@ -2,9 +2,8 @@
 
 Runs the one-program sharded roundtrip on 1, 2, 4, ..., N devices with a
 constant per-device workload and reports aggregate GiB/s + scaling
-efficiency.  On a single-chip environment this degenerates to the
-1-device row (the multi-device rows need a real pod slice); on CPU it
-measures nothing useful but exercises the code path.
+efficiency.  On one device this degenerates to the 1-device row; on CPU
+it measures nothing useful but exercises the code path.
 
 Usage: python tools/bench_sharded.py [--per-device-mib 4] [--stream 1]
 """

@@ -6,7 +6,7 @@ Usage:
       [--out benchmarks/results.json]
 
 The reference benchmarks 100 KiB blocks (huffman_benchmark.cpp:19) on all
-its compressors; this harness runs the TPU codec at several lane counts
+its compressors; this harness runs the tpu-profile codec at several lane counts
 plus the ref-profile JAX codec and the host golden codec, then prints the
 make_table.py-style markdown (C32 parity).
 """
